@@ -13,13 +13,17 @@ per circuit size K.  Here the prover-shaped pipeline is:
 
 The CPU column is the library's own host fallback (the BLST-role native
 Pippenger, native/msm_host.cpp, for MSMs; the XLA:CPU path of the same
-NTT/vecops programs, run in a JAX_PLATFORMS=cpu subprocess because a
-process binds one default platform).
+NTT/vecops programs, run in a subprocess pinned to the CPU because a
+process binds one default platform, and one process uses the card).
+
+The accel leg needs a GPU and exits non-zero without one.  Every row
+names the card and its power limit.
 
 Usage:
     python bench_e2e.py                  # accel leg + CPU-leg subprocess
     BENCH_E2E_KS=14,16 python bench_e2e.py
     BENCH_E2E_SKIP_CPU=1 python bench_e2e.py   # accel only
+    BENCH_E2E_OUT=e2e.json python bench_e2e.py # also write the rows there
     python bench_e2e.py --cpu-leg 14     # internal: one CPU-leg K, JSON out
 """
 
@@ -36,17 +40,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-if "--cpu-leg" in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/tpu_bls12_381_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-from tpu_bls12_381 import constants, vecops
-from tpu_bls12_381.fields import FR, ops
-from tpu_bls12_381.ntt import get_domain
-from tpu_bls12_381.ntt.ntt import coset_intt, coset_ntt
-from tpu_bls12_381.runtime.msm_context import g1_context
+from bls12_381_jax import constants, vecops
+from bls12_381_jax.fields import FR, ops
+from bls12_381_jax.ntt import get_domain
+from bls12_381_jax.ntt.ntt import coset_intt, coset_ntt
+from bls12_381_jax.runtime.msm_context import g1_context
 
 from bench import _random_fr_mont, _random_g1_batch
 
@@ -56,9 +54,9 @@ REPS = int(os.environ.get("BENCH_E2E_REPS", "2"))
 
 
 def _timed(fn):
-    from tpu_bls12_381.runtime.tracing import fence, timed_reps
+    from bls12_381_jax.runtime.tracing import timed_reps
 
-    fence(fn())  # compile
+    jax.block_until_ready(fn())  # compile
     return timed_reps(REPS, fn)
 
 
@@ -85,8 +83,8 @@ def accel_leg(K: int) -> dict:
 
 def cpu_leg(K: int) -> dict:
     """Host-path times: native Pippenger MSM + XLA:CPU NTT/vecops."""
-    from tpu_bls12_381 import native
-    from tpu_bls12_381.curves import g1
+    from bls12_381_jax import native
+    from bls12_381_jax.curves import g1
 
     n, dom_n = 1 << K, 1 << (K + 1)
     t = {}
@@ -122,37 +120,48 @@ def cpu_leg(K: int) -> dict:
     return t
 
 
+def _write(out_path, results):
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(results, f, indent=1)
+
+
 def main():
+    from bls12_381_jax.compile_cache import enable_compile_cache
+
     if "--cpu-leg" in sys.argv:
+        # Pinned before any JAX use: this child must never open the card
+        # the parent process holds.
+        jax.config.update("jax_platforms", "cpu")
+        enable_compile_cache()
         K = int(sys.argv[sys.argv.index("--cpu-leg") + 1])
         print(json.dumps(cpu_leg(K)))
         return
 
+    from bls12_381_jax.devinfo import card_info, require_gpu
+
+    dev = require_gpu()
+    card = card_info()
+    enable_compile_cache()
+    print(f"# device: {dev.platform} {dev.device_kind} x{len(jax.devices())}"
+          f"; card: {card}", file=sys.stderr)
     ks = [int(k) for k in
           os.environ.get("BENCH_E2E_KS", "14,16,18").split(",")]
     skip_cpu = bool(os.environ.get("BENCH_E2E_SKIP_CPU"))
-    out_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "E2E.json")
+    out_path = os.environ.get("BENCH_E2E_OUT")
     results = {}
-    if os.path.exists(out_path):  # a partial run must not clobber other Ks
-        try:
-            with open(out_path) as f:
-                results = json.load(f)
-        except (OSError, ValueError):
-            results = {}
     for K in ks:
         try:
             acc = accel_leg(K)
         except Exception as e:  # one bad K must not lose the others
             print(f"# accel leg FAILED for K={K}: {e!r}", file=sys.stderr)
             results[str(K)] = {"accel_error": repr(e)}
-            with open(out_path, "w") as f:
-                json.dump(results, f, indent=1)
+            _write(out_path, results)
             continue
-        row = {"accel": acc}
+        row = {"accel": acc, "card": card}
         results[str(K)] = row
-        with open(out_path, "w") as f:  # write the accel row FIRST: a
-            json.dump(results, f, indent=1)  # dead CPU leg must not lose it
+        _write(out_path, results)  # accel row FIRST: a dead CPU leg
+        # must not lose it
         if not skip_cpu:
             try:
                 out = subprocess.run(
@@ -172,8 +181,7 @@ def main():
                 print(f"# cpu leg failed for K={K}:\n{out.stderr[-2000:]}",
                       file=sys.stderr)
         results[str(K)] = row
-        with open(out_path, "w") as f:  # incremental: survive later crashes
-            json.dump(results, f, indent=1)
+        _write(out_path, results)  # incremental: survive later crashes
         print(f"# K={K} done: accel total {acc['total']*1e3:.1f} ms",
               file=sys.stderr)
 
@@ -192,9 +200,7 @@ def main():
             cells.append(f"{a:.1f} / {c / row['accel'][p]:.1f}x"
                          if c else f"{a:.1f} / —")
         print(f"| {K} | " + " | ".join(cells) + " |")
-
-    with open(out_path, "w") as f:
-        json.dump(results, f, indent=1)
+    print(f"(card: {card})")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-// Host-side bulk conversion library for tpu-bls12-381.
+// Host-side bulk conversion library for bls12_381_jax.
 //
-// The TPU-native analog of the reference's host conversion hot path
+// The analog of the reference's host conversion hot path
 // (core/types.rs TypeConverter): wire-format field elements (little-endian
 // 64-bit limbs, 4 for Fr / 6 for Fq) are repacked into the library's
 // limbs-first 16-bit-limb uint32 arrays, and Montgomery encode/decode is
@@ -20,7 +20,7 @@
 
 namespace {
 
-using namespace tpu381;
+using namespace bls381;
 
 template <int K>
 static void mont_scale_batch(const uint64_t* in, uint64_t* out, size_t n,

@@ -6,14 +6,14 @@
 // bls12-381/include/bls12_381_constants.h — they are curve facts).
 // This plays the role BLST's field layer plays for the reference's CPU
 // fallback (core/traits/cpu_impl.rs): a fast host-side implementation,
-// independent of the TPU limb engine.
+// independent of the device limb engine.
 
 #pragma once
 
 #include <cstdint>
 #include <cstring>
 
-namespace tpu381 {
+namespace bls381 {
 
 using u128 = unsigned __int128;
 
@@ -130,4 +130,4 @@ static inline bool eq(const uint64_t* a, const uint64_t* b) {
   return acc == 0;
 }
 
-}  // namespace tpu381
+}  // namespace bls381

@@ -21,7 +21,7 @@
 
 namespace {
 
-using namespace tpu381;
+using namespace bls381;
 
 // ---------------------------------------------------------------------------
 // Field wrappers
@@ -38,7 +38,7 @@ struct Fq {
     mont_mul<6>(r.v, FQ_R2, FQ_P, FQ_INV, out.v);
     return out;
   }
-  bool is_zero() const { return tpu381::is_zero<6>(v); }
+  bool is_zero() const { return bls381::is_zero<6>(v); }
   bool equals(const Fq& o) const { return eq<6>(v, o.v); }
   Fq add(const Fq& o) const { Fq r; add_mod<6>(v, o.v, FQ_P, r.v); return r; }
   Fq sub(const Fq& o) const { Fq r; sub_mod<6>(v, o.v, FQ_P, r.v); return r; }

@@ -17,7 +17,7 @@ jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tpu_bls12_381.parallel import init_distributed  # noqa: E402
+from bls12_381_jax.parallel import init_distributed  # noqa: E402
 
 assert init_distributed() is True, "init_distributed did not activate"
 assert jax.process_count() == 2
@@ -26,11 +26,11 @@ import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-from tpu_bls12_381 import constants  # noqa: E402
-from tpu_bls12_381.fields import FR  # noqa: E402
-from tpu_bls12_381.fields.limbs import ints_to_limbs  # noqa: E402
-from tpu_bls12_381.parallel import default_mesh, intt_sharded, ntt_sharded  # noqa: E402
-from tpu_bls12_381.parallel.mesh import SHARD_AXIS  # noqa: E402
+from bls12_381_jax import constants  # noqa: E402
+from bls12_381_jax.fields import FR  # noqa: E402
+from bls12_381_jax.fields.limbs import ints_to_limbs  # noqa: E402
+from bls12_381_jax.parallel import default_mesh, intt_sharded, ntt_sharded  # noqa: E402
+from bls12_381_jax.parallel.mesh import SHARD_AXIS  # noqa: E402
 
 mesh = default_mesh()
 p = mesh.devices.size

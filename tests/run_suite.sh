@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Suite runner with per-file segfault retries.
 #
-# XLA:CPU on this host intermittently SIGSEGVs inside compilation
+# XLA:CPU has intermittently SIGSEGVed inside compilation
 # (backend_compile_and_load / executable.serialize) — roughly once per
 # ~40 min of compile activity, independent of the persistent cache
 # (which is disabled in conftest for the same reason).  The crash is in
@@ -10,71 +10,33 @@
 # exit code signals a signal-death (>= 128), up to MAX_RETRY times.
 #
 # Usage: tests/run_suite.sh [extra pytest args]
-#        tests/run_suite.sh --tpu [extra pytest args]
 #
-# --tpu runs the Mosaic-compiled-kernel subset on the real chip
-# (MIDNIGHT_TEST_TPU=1: Pallas kernels compile instead of interpreting,
-# test_fourstep unskips) and records the pass summary in TPU_SUITE.txt —
-# the per-round artifact proving the compiled kernels are bit-exact.
+# The tests marked gpu skip on the CPU; `python chip_smoke.py` runs them
+# on a card.
 
 set -u
 cd "$(dirname "$0")/.."
 MAX_RETRY=${MAX_RETRY:-2}
 
 FILES=(tests/test_*.py)
-SUMMARY=""
-if [ "${1:-}" = "--tpu" ]; then
-  shift
-  export MIDNIGHT_TEST_TPU=1
-  # Compile-heavy Pallas/kernel files only: the rest of the suite is
-  # platform-independent integer math already covered by the CPU run.
-  # SUITE_FILES overrides (space-separated) so a long pass can be split
-  # across driver step timeouts; SUITE_APPEND=1 keeps the prior record.
-  FILES=(tests/test_pallas_ops.py tests/test_fourstep.py
-         tests/test_projective.py tests/test_golden.py
-         tests/test_tpu_smoke.py)
-  if [ -n "${SUITE_FILES:-}" ]; then
-    read -r -a FILES <<< "$SUITE_FILES"
-  fi
-  SUMMARY=TPU_SUITE.txt
-  [ "${SUITE_APPEND:-0}" = "1" ] || : > "$SUMMARY"
-  {
-    echo "# Real-TPU kernel suite ($(date -u +%Y-%m-%dT%H:%M:%SZ))"
-    python - <<'EOF'
-import jax
-d = jax.devices()[0]
-print(f"# device: {d.device_kind} ({d.platform})")
-EOF
-  } >> "$SUMMARY"
-fi
 
-# Per-file timeout: one slow file (test_projective: 652 s on-chip in
-# round 3) must not starve the rest of the suite of its whole budget.
+# Per-file timeout: one slow file must not starve the rest of the suite
+# of its whole budget.
 FILE_TMO=${SUITE_FILE_TMO:-1200}
 
 fail=0
 for f in "${FILES[@]}"; do
   for attempt in $(seq 0 "$MAX_RETRY"); do
-    if [ -n "$SUMMARY" ]; then
-      timeout "$FILE_TMO" python -m pytest "$f" -q -p no:cacheprovider "$@" 2>&1 | tee /tmp/suite_last.log
-      rc=${PIPESTATUS[0]}
-    else
-      timeout "$FILE_TMO" python -m pytest "$f" -q -p no:cacheprovider "$@"
-      rc=$?
-    fi
+    timeout "$FILE_TMO" python -m pytest "$f" -q -p no:cacheprovider "$@"
+    rc=$?
     if [ "$rc" -eq 0 ]; then
-      [ -n "$SUMMARY" ] && echo "$f: $(tail -1 /tmp/suite_last.log)" >> "$SUMMARY"
       break
     elif [ "$rc" -eq 124 ]; then
-      [ -n "$SUMMARY" ] && echo "$f: TIMEOUT (${FILE_TMO}s)" >> "$SUMMARY"
       fail=1
       break
     elif [ "$rc" -ge 128 ] && [ "$attempt" -lt "$MAX_RETRY" ]; then
       echo "== $f died with signal (rc=$rc); retry $((attempt + 1))/$MAX_RETRY =="
     else
-      # record the failure and keep going: every file must get its
-      # on-hardware record even when an earlier one regresses
-      [ -n "$SUMMARY" ] && echo "$f: FAILED (rc=$rc)" >> "$SUMMARY"
       fail=1
       break
     fi

@@ -5,9 +5,9 @@ Montgomery constant derivations.
 
 import random
 
-from tpu_bls12_381 import constants as C
-from tpu_bls12_381 import oracle
-from tpu_bls12_381.fields import FQ, FR
+from bls12_381_jax import constants as C
+from bls12_381_jax import oracle
+from bls12_381_jax.fields import FQ, FR
 
 
 def _is_prime(n, k=20):
@@ -68,7 +68,7 @@ def test_montgomery_constants():
         assert spec.r2 == (spec.r * spec.r) % p
         assert (spec.n0_inv * p) % (1 << 16) == (1 << 16) - 1  # -p^{-1} mod 2^16
         # limb arrays round-trip
-        from tpu_bls12_381.fields.limbs import limbs_to_int
+        from bls12_381_jax.fields.limbs import limbs_to_int
 
         assert limbs_to_int(spec.modulus_limbs) == p
         assert limbs_to_int(spec.one_mont_limbs) == spec.r % p

@@ -7,9 +7,9 @@ edge cases, scalar multiplication vs the big-int oracle.
 import numpy as np
 import pytest
 
-from tpu_bls12_381 import oracle
-from tpu_bls12_381.curves import g1, g2, points
-from tpu_bls12_381.fields.limbs import ints_to_limbs
+from bls12_381_jax import oracle
+from bls12_381_jax.curves import g1, g2, points
+from bls12_381_jax.fields.limbs import ints_to_limbs
 
 N = 9
 
@@ -160,10 +160,10 @@ def test_sum_reduce_g1(rng):
 
 def test_subgroup_membership(rng):
     """[r]P == O check (reference leaves this TODO, point.cuh:403-448)."""
-    from tpu_bls12_381 import constants, oracle
-    from tpu_bls12_381.curves import g1
-    from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER
-    from tpu_bls12_381.curves.points import is_in_subgroup
+    from bls12_381_jax import constants, oracle
+    from bls12_381_jax.curves import g1
+    from bls12_381_jax.curves.field_adapters import FQ_ADAPTER
+    from bls12_381_jax.curves.points import is_in_subgroup
 
     import jax.numpy as jnp
 

@@ -8,8 +8,8 @@ Oracle: python big-int arithmetic.  Batched over random vectors.
 import numpy as np
 import pytest
 
-from tpu_bls12_381.fields import FQ, FR, ops
-from tpu_bls12_381.fields.limbs import ints_to_limbs, limbs_to_ints
+from bls12_381_jax.fields import FQ, FR, ops
+from bls12_381_jax.fields.limbs import ints_to_limbs, limbs_to_ints
 
 SPECS = [FR, FQ]
 N = 17  # deliberately non-power-of-two batch
@@ -139,3 +139,77 @@ def test_broadcast_and_shapes(spec, rng):
     assert s.shape == a.shape
     got = to_ints(np.asarray(s).reshape(spec.num_limbs, -1))
     assert got == [(2 * x) % spec.modulus for x in xs]
+
+
+# -- the whole-array forms vs the independent unrolled forms ---------------
+
+
+def _chain_values(spec):
+    """Values whose sums, differences and products run carry and borrow
+    chains through many limbs (runs of 0xFFFF and 0x0000 limbs)."""
+    K, p = spec.num_limbs, spec.modulus
+    vals = [0, 1, 2, p - 1, p - 2, p // 2]
+    for k in (1, 5, K // 2, K - 2):
+        vals += [(1 << (16 * k)) - 1, 1 << (16 * k), ((1 << (16 * k)) - 1) << 16]
+    vals += [(p >> 16) << 16, p - (1 << (16 * (K - 2)))]
+    return [v % p for v in vals]
+
+
+def _form_inputs(spec, rng, n):
+    chain = _chain_values(spec)
+    xs = chain + [rng.randrange(spec.modulus) for _ in range(n - len(chain))]
+    ys = list(reversed(chain)) + [
+        rng.randrange(spec.modulus) for _ in range(n - len(chain))]
+    # every chain value against 1 and against itself as well
+    xs += chain + chain
+    ys += [1] * len(chain) + chain
+    return to_dev(spec, xs), to_dev(spec, ys)
+
+
+_FORMS = {
+    "mul": (lambda s, a, b: ops.mont_mul(s, a, b),
+            lambda s, a, b: ops.mont_mul_unrolled(s, a, b)),
+    "sqr": (lambda s, a, b: ops.mont_sqr(s, a),
+            lambda s, a, b: ops.mont_sqr_unrolled(s, a)),
+    "add": (lambda s, a, b: ops.add(s, a, b),
+            lambda s, a, b: ops.add_unrolled_impl(s, a, b)),
+    "sub": (lambda s, a, b: ops.sub(s, a, b),
+            lambda s, a, b: ops.sub_unrolled_impl(s, a, b)),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_FORMS))
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
+def test_whole_array_form_matches_unrolled(spec, op, rng):
+    """Each op every caller uses is bit-identical to the independent
+    unrolled form, on a batch (129 lanes plus chain cases) that is not a
+    power of two, with carry and borrow chains across many limbs."""
+    a, b = _form_inputs(spec, rng, 129)
+    chosen, reference = _FORMS[op]
+    np.testing.assert_array_equal(np.asarray(chosen(spec, a, b)),
+                                  np.asarray(reference(spec, a, b)))
+    assert all(v < spec.modulus for v in to_ints(chosen(spec, a, b)))
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
+def test_mont_mul_cios_matches_unrolled(rng, spec):
+    """Default scan-based CIOS is bit-identical to the independent
+    unrolled schoolbook+REDC implementation."""
+    import jax.numpy as jnp
+
+    n = 200
+    a = jnp.asarray(to_dev(spec, rand_elems(rng, spec, n)))
+    b = jnp.asarray(to_dev(spec, rand_elems(rng, spec, n)))
+    got = ops.mont_mul(spec, a, b)  # cios (default)
+    want = ops.mont_mul_unrolled(spec, a, b)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    # edge values: 0, 1, p-1
+    edge = [0, 1, spec.modulus - 1, spec.modulus - 1]
+    ea = jnp.asarray(ints_to_limbs(edge, spec.num_limbs))
+    eb = jnp.asarray(ints_to_limbs(list(reversed(edge)), spec.num_limbs))
+    np.testing.assert_array_equal(
+        np.asarray(ops.mont_mul(spec, ea, eb)),
+        np.asarray(ops.mont_mul_unrolled(spec, ea, eb)))
+    np.testing.assert_array_equal(
+        np.asarray(ops.mont_sqr(spec, a)),
+        np.asarray(ops.mont_sqr_unrolled(spec, a)))

@@ -11,11 +11,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tpu_bls12_381 import constants, oracle
-from tpu_bls12_381.curves import g1, glv
-from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER
-from tpu_bls12_381.fields import FR
-from tpu_bls12_381.fields.limbs import ints_to_limbs
+from bls12_381_jax import constants, oracle
+from bls12_381_jax.curves import g1, glv
+from bls12_381_jax.curves.field_adapters import FQ_ADAPTER
+from bls12_381_jax.fields import FR
+from bls12_381_jax.fields.limbs import ints_to_limbs
 
 R = constants.FR_MODULUS
 
@@ -53,7 +53,7 @@ def test_decompose_exact(rng):
     ks = [0, 1, glv.GLV_LAMBDA, R - 1] + [rng.randrange(R) for _ in range(12)]
     arr = jnp.asarray(ints_to_limbs(ks, FR.num_limbs))
     k1, k2 = glv.decompose(arr)
-    from tpu_bls12_381.fields.limbs import limbs_to_ints
+    from bls12_381_jax.fields.limbs import limbs_to_ints
 
     k1i = limbs_to_ints(np.asarray(k1))
     k2i = limbs_to_ints(np.asarray(k2))

@@ -1,7 +1,7 @@
 """Golden-vector (KAT) suite: limb-exact parity against checked-in vectors.
 
 The vectors in ``tests/vectors/`` were produced by ``tools/gen_vectors.py``
-— an implementation independent of both the TPU path and the Python
+— an implementation independent of both the device path and the Python
 oracle (affine chord-tangent group law, recursive FFT, plain ints).  This
 is the analog of the reference's captured-vector policy
 (security_audit_tests.cuh:30-46: BLST/Arkworks/EIP-2537/Zcash vectors;
@@ -20,12 +20,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tpu_bls12_381 import constants
-from tpu_bls12_381.fields import FQ, FR, ops
-from tpu_bls12_381.fields.limbs import ints_to_limbs, limbs_to_ints
-from tpu_bls12_381.curves import g1, g2
-from tpu_bls12_381.msm import msm_g1, msm_g2
-from tpu_bls12_381.ntt import ntt, coset_ntt
+from bls12_381_jax import constants
+from bls12_381_jax.fields import FQ, FR, ops
+from bls12_381_jax.fields.limbs import ints_to_limbs, limbs_to_ints
+from bls12_381_jax.curves import g1, g2
+from bls12_381_jax.msm import msm_g1, msm_g2
+from bls12_381_jax.ntt import ntt, coset_ntt
 
 VEC_DIR = os.path.join(os.path.dirname(__file__), "vectors")
 
@@ -209,8 +209,8 @@ class TestExternalVectors:
             jax.tree_util.tree_map(lambda v: v[..., None], P))[0]
 
     def test_g1_double_generator(self):
-        from tpu_bls12_381.curves import points as pt
-        from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER
+        from bls12_381_jax.curves import points as pt
+        from bls12_381_jax.curves.field_adapters import FQ_ADAPTER
 
         G = g1.generator_affine((1,))
         got = g1.jacobian_to_ints(
@@ -218,8 +218,8 @@ class TestExternalVectors:
         assert got == EIP2537_G1_2G
 
     def test_g1_add_g_2g_is_3g(self):
-        from tpu_bls12_381.curves import points as pt
-        from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER
+        from bls12_381_jax.curves import points as pt
+        from bls12_381_jax.curves.field_adapters import FQ_ADAPTER
 
         G = pt.affine_to_jac(FQ_ADAPTER, g1.generator_affine((1,)))
         twoG = pt.affine_to_jac(
@@ -241,8 +241,8 @@ class TestExternalVectors:
         assert self._g1_one(msm_g1(_fr_mont_limbs([3]), A)) == EIP2537_G1_3G
 
     def test_g2_double_generator(self):
-        from tpu_bls12_381.curves import points as pt
-        from tpu_bls12_381.curves.field_adapters import FQ2_ADAPTER
+        from bls12_381_jax.curves import points as pt
+        from bls12_381_jax.curves.field_adapters import FQ2_ADAPTER
 
         G = g2.generator_affine((1,))
         got = g2.jacobian_to_ints(

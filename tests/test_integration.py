@@ -15,13 +15,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tpu_bls12_381 import constants, oracle, vecops
-from tpu_bls12_381.curves import g1, points as pt
-from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER
-from tpu_bls12_381.fields import FR, ops
-from tpu_bls12_381.fields.limbs import ints_to_limbs, limbs_to_ints
-from tpu_bls12_381.ntt import coset_intt, coset_ntt
-from tpu_bls12_381.runtime import global_accelerator
+from bls12_381_jax import constants, oracle, vecops
+from bls12_381_jax.curves import g1, points as pt
+from bls12_381_jax.curves.field_adapters import FQ_ADAPTER
+from bls12_381_jax.fields import FR, ops
+from bls12_381_jax.fields.limbs import ints_to_limbs, limbs_to_ints
+from bls12_381_jax.ntt import coset_intt, coset_ntt
+from bls12_381_jax.runtime import global_accelerator
 
 R = constants.FR_MODULUS
 N_BASES = 64   # shared with test_runtime/test_msm shapes (compile reuse)
@@ -86,8 +86,8 @@ def test_prover_round_under_memory_pressure(rng, monkeypatch):
     crashed the round-3 e2e K=20 leg.  The pressured run must be
     bit-identical to the unpressured one, and must actually have chunked.
     """
-    from tpu_bls12_381.msm import pippenger
-    from tpu_bls12_381.runtime.msm_context import g1_context
+    from bls12_381_jax.msm import pippenger
+    from bls12_381_jax.runtime.msm_context import g1_context
 
     ctx = g1_context()
     n = N_BASES

@@ -12,12 +12,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tpu_bls12_381 import constants, oracle
-from tpu_bls12_381.curves import g1, g2, points as pt
-from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER, FQ2_ADAPTER
-from tpu_bls12_381.fields import FR
-from tpu_bls12_381.fields.limbs import ints_to_limbs
-from tpu_bls12_381.msm import msm_g1, msm_g2
+from bls12_381_jax import constants, oracle
+from bls12_381_jax.curves import g1, g2, points as pt
+from bls12_381_jax.curves.field_adapters import FQ_ADAPTER, FQ2_ADAPTER
+from bls12_381_jax.fields import FR
+from bls12_381_jax.fields.limbs import ints_to_limbs
+from bls12_381_jax.msm import msm_g1, msm_g2
 
 N = 64  # shared with test_runtime so staged jits compile once per shape
 
@@ -123,7 +123,7 @@ class TestG1MsmGlv:
     """GLV-split MSM: [k1 || k2] against [A || phi(A)], 128-bit windows."""
 
     def test_matches_plain(self, rng):
-        from tpu_bls12_381.curves.glv import GLV_LAMBDA
+        from bls12_381_jax.curves.glv import GLV_LAMBDA
 
         A, pts = _g1_points(rng, N)
         vals = [rng.randrange(constants.FR_MODULUS) for _ in range(N - 6)]
@@ -151,7 +151,7 @@ class TestG1MsmGlv:
 
     def test_precomputed_bases_glv(self, rng):
         """upload_bases(glv=True) stores [A || phi(A)]; factor composes."""
-        from tpu_bls12_381.runtime.msm_context import g1_context
+        from bls12_381_jax.runtime.msm_context import g1_context
 
         ctx = g1_context()
         A, pts = _g1_points(rng, N)
@@ -165,7 +165,7 @@ class TestG1MsmGlv:
             assert got == want, f"factor={factor}"
 
     def test_batch_shared_glv(self, rng):
-        from tpu_bls12_381.runtime.msm_context import g1_context
+        from bls12_381_jax.runtime.msm_context import g1_context
 
         ctx = g1_context()
         A, pts = _g1_points(rng, N)
@@ -179,7 +179,7 @@ class TestG1MsmGlv:
             assert _g1_result(P) == want
 
     def test_env_flag_routes(self, rng, monkeypatch):
-        from tpu_bls12_381.runtime import reset_config_cache
+        from bls12_381_jax.runtime import reset_config_cache
 
         A, pts = _g1_points(rng, 16)
         vals = [rng.randrange(constants.FR_MODULUS) for _ in range(16)]
@@ -201,7 +201,7 @@ class TestMemoryChunking:
     must be bit-identical to the single-shot pipeline."""
 
     def test_single_msm_chunked_matches(self, rng, monkeypatch):
-        from tpu_bls12_381.msm import pippenger
+        from bls12_381_jax.msm import pippenger
 
         A, pts = _g1_points(rng, N)
         vals = [rng.randrange(constants.FR_MODULUS) for _ in range(N)]
@@ -214,7 +214,7 @@ class TestMemoryChunking:
         assert got == want
 
     def test_expand_bases_chunked_matches(self, rng, monkeypatch):
-        from tpu_bls12_381.msm import pippenger
+        from bls12_381_jax.msm import pippenger
 
         A, _ = _g1_points(rng, N)
         w = pippenger.window_bits_for(N, FQ_ADAPTER)
@@ -226,8 +226,8 @@ class TestMemoryChunking:
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     def test_batch_shared_chunked_matches(self, rng, monkeypatch):
-        from tpu_bls12_381.msm import pippenger
-        from tpu_bls12_381.runtime.msm_context import g1_context
+        from bls12_381_jax.msm import pippenger
+        from bls12_381_jax.runtime.msm_context import g1_context
 
         ctx = g1_context()
         A, pts = _g1_points(rng, N)

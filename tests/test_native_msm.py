@@ -13,7 +13,7 @@ import time
 
 import pytest
 
-from tpu_bls12_381 import native, oracle
+from bls12_381_jax import native, oracle
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built")
@@ -88,7 +88,7 @@ def test_g2_matches_oracle():
 def test_dispatch_cpu_route_uses_native_and_is_fast():
     """2^13 through dispatch's CPU route completes in seconds (the naive
     oracle would need minutes) and matches a spot-check subset."""
-    from tpu_bls12_381.runtime import dispatch
+    from bls12_381_jax.runtime import dispatch
 
     n = 1 << 13
     base = _g1_points(1)[0]

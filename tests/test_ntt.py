@@ -7,10 +7,10 @@ coset, orderings, domain-size sweep.
 import numpy as np
 import pytest
 
-from tpu_bls12_381 import oracle, vecops
-from tpu_bls12_381.fields import FR, ops
-from tpu_bls12_381.fields.limbs import ints_to_limbs, limbs_to_ints
-from tpu_bls12_381.ntt import Ordering, coset_intt, coset_ntt, get_domain, intt, ntt
+from bls12_381_jax import oracle, vecops
+from bls12_381_jax.fields import FR, ops
+from bls12_381_jax.fields.limbs import ints_to_limbs, limbs_to_ints
+from bls12_381_jax.ntt import Ordering, coset_intt, coset_ntt, get_domain, intt, ntt
 
 R = FR.modulus
 
@@ -126,7 +126,7 @@ def test_coset(rng):
 
 
 def test_domain_reuse_and_release():
-    from tpu_bls12_381.ntt import release_domain
+    from bls12_381_jax.ntt import release_domain
 
     d1 = get_domain(6)
     d2 = get_domain(6)

@@ -1,7 +1,7 @@
 """Sharded (multi-chip) MSM and NTT vs the single-device implementations.
 
 Runs on the 8-virtual-device CPU mesh from conftest.py — the same code
-path the driver's dryrun_multichip exercises and the TPU pod would run.
+path dryrun_multichip exercises and a multi-card host runs.
 """
 
 import os
@@ -12,20 +12,20 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tpu_bls12_381 import constants
-from tpu_bls12_381.fields import FR, ops
-from tpu_bls12_381.fields.limbs import ints_to_limbs, limbs_to_ints
-from tpu_bls12_381.curves import g1, points as pt
-from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER
-from tpu_bls12_381.msm import msm_g1
-from tpu_bls12_381.ntt import ntt, intt
-from tpu_bls12_381.parallel import (
+from bls12_381_jax import constants
+from bls12_381_jax.fields import FR, ops
+from bls12_381_jax.fields.limbs import ints_to_limbs, limbs_to_ints
+from bls12_381_jax.curves import g1, points as pt
+from bls12_381_jax.curves.field_adapters import FQ_ADAPTER
+from bls12_381_jax.msm import msm_g1
+from bls12_381_jax.ntt import ntt, intt
+from bls12_381_jax.parallel import (
     default_mesh,
     msm_g1_sharded,
     ntt_sharded,
     intt_sharded,
 )
-from tpu_bls12_381.parallel.msm import shard_msm_inputs
+from bls12_381_jax.parallel.msm import shard_msm_inputs
 
 
 def _mesh():
@@ -41,7 +41,7 @@ def _rand_fr_mont(rng, n):
 
 def _gen_points(rng, n):
     """n distinct small multiples of the generator (host-side oracle)."""
-    from tpu_bls12_381 import oracle
+    from bls12_381_jax import oracle
 
     ks = [rng.randrange(1, 1 << 20) for _ in range(n)]
     G = oracle.g1_generator()
@@ -69,7 +69,7 @@ class TestShardedNtt:
         back = intt_sharded(evals_t, mesh, transposed_in=True)
         np.testing.assert_array_equal(np.asarray(back), np.asarray(x))
         # transposed layout is the documented permutation of the natural one
-        from tpu_bls12_381.parallel.ntt import split_sizes
+        from bls12_381_jax.parallel.ntt import split_sizes
 
         nA, nB = split_sizes(10, mesh.devices.size)
         nat = np.asarray(ntt(x)).reshape(FR.num_limbs, nA, nB)
@@ -107,8 +107,8 @@ class TestShardedNtt:
 
 class TestShardedCosetNtt:
     def test_coset_matches_single_device(self, rng):
-        from tpu_bls12_381.ntt.ntt import coset_ntt
-        from tpu_bls12_381.parallel import coset_ntt_sharded
+        from bls12_381_jax.ntt.ntt import coset_ntt
+        from bls12_381_jax.parallel import coset_ntt_sharded
 
         mesh = _mesh()
         n = 1 << 9
@@ -119,7 +119,7 @@ class TestShardedCosetNtt:
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
     def test_coset_roundtrip_transposed(self, rng):
-        from tpu_bls12_381.parallel import coset_intt_sharded, coset_ntt_sharded
+        from bls12_381_jax.parallel import coset_intt_sharded, coset_ntt_sharded
 
         mesh = _mesh()
         n = 1 << 9
@@ -132,7 +132,7 @@ class TestShardedCosetNtt:
 
 class TestInitDistributed:
     def test_single_process_noop(self):
-        from tpu_bls12_381.parallel import init_distributed
+        from bls12_381_jax.parallel import init_distributed
 
         assert init_distributed() is False  # no coordinator configured
 
@@ -173,7 +173,7 @@ class TestInitDistributed:
 
 class TestBatchShardedNtt:
     def test_batch_matches_single_device(self, rng):
-        from tpu_bls12_381.parallel import ntt_batch_sharded
+        from bls12_381_jax.parallel import ntt_batch_sharded
 
         mesh = _mesh()
         B, n = mesh.devices.size * 2, 256
@@ -186,9 +186,9 @@ class TestBatchShardedNtt:
 
 class TestShardedMsm:
     def test_g2_sharded_matches_oracle(self, rng):
-        from tpu_bls12_381 import oracle
-        from tpu_bls12_381.curves import g2
-        from tpu_bls12_381.parallel import msm_g2_sharded
+        from bls12_381_jax import oracle
+        from bls12_381_jax.curves import g2
+        from bls12_381_jax.parallel import msm_g2_sharded
 
         mesh = _mesh()
         n = 8 * mesh.devices.size
@@ -233,7 +233,7 @@ class TestShardedMsm:
 
     def test_precomputed_sharded_matches_single_device(self, rng):
         """factor>1 bases chunked segment-wise through the sharded path."""
-        from tpu_bls12_381.msm import pippenger
+        from bls12_381_jax.msm import pippenger
 
         mesh = _mesh()
         D = mesh.devices.size
@@ -249,7 +249,7 @@ class TestShardedMsm:
 
     def test_glv_precomputed_sharded_matches_single_device(self, rng):
         """GLV + precompute compose on the sharded path."""
-        from tpu_bls12_381.msm import pippenger
+        from bls12_381_jax.msm import pippenger
 
         mesh = _mesh()
         D = mesh.devices.size
@@ -268,7 +268,7 @@ class TestShardedMsm:
         assert bool(np.asarray(pt.jac_eq(FQ_ADAPTER, got, want)))
 
     def test_matches_oracle(self, rng):
-        from tpu_bls12_381 import oracle
+        from bls12_381_jax import oracle
 
         mesh = _mesh()
         n = 64

@@ -5,22 +5,16 @@ these tests pin its semantics: agreement with the oracle on generic
 points, exception-freeness on every edge case the reference's cmov
 chains handle explicitly (test_curve_operations.cu / point.cuh:610-915),
 and round-trip consistency with the Jacobian representation.
-
-On TPU the fused Pallas kernels (pallas_g1.pmadd/padd/pdbl) serve these
-ops; their bit-exactness vs this generic path is asserted on-device
-(they are routed off on CPU where the generic path is itself the oracle
-subject here).
 """
 
-import random
 
 import jax
 import jax.numpy as jnp
 import pytest
 
-from tpu_bls12_381 import constants, oracle
-from tpu_bls12_381.curves import g1, g2, points as pt, projective as pj
-from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER, FQ2_ADAPTER
+from bls12_381_jax import constants, oracle
+from bls12_381_jax.curves import g1, g2, points as pt, projective as pj
+from bls12_381_jax.curves.field_adapters import FQ_ADAPTER, FQ2_ADAPTER
 
 R = constants.FR_MODULUS
 
@@ -128,54 +122,3 @@ def test_jac_proj_roundtrip(rng):
     # proj_to_affine agrees with the jacobian conversion
     got = g1.affine_to_ints(pj.proj_to_affine(F, pj.jac_to_proj(F, J)))
     assert got == pts
-
-
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="fused kernels are TPU-only (interpret mode is "
-                           "pathologically slow for kernels this size)")
-def test_fused_kernels_bit_exact():  # pragma: no cover - TPU-only
-    from tpu_bls12_381.curves.pallas_g1 import padd, pdbl, pmadd
-
-    rng = random.Random(0xB15)
-    F = FQ_ADAPTER
-    pts = _g1_points(rng, 6)
-    A = g1.affine_from_ints(pts)
-    B = g1.affine_from_ints(pts[1:] + [None])
-    P = pj.affine_to_proj(F, A)
-    Q = pj.affine_to_proj(F, B)
-    eq3 = lambda X, Y: all(
-        bool(jnp.array_equal(x, y)) for x, y in zip(X, Y)
-    )
-    assert eq3(pmadd(P, B), pj.proj_add_mixed(F, P, B))
-    assert eq3(padd(P, Q), pj.proj_add(F, P, Q))
-    assert eq3(pdbl(P), pj.proj_double(F, P))
-    I = pj.proj_identity(F, (6,))
-    assert eq3(pmadd(I, B), pj.proj_add_mixed(F, I, B))
-    assert eq3(pmadd(P, A), pj.proj_add_mixed(F, P, A))
-    assert eq3(padd(P, pj.proj_neg(F, P)), pj.proj_add(F, P, pj.proj_neg(F, P)))
-
-
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="fused kernels are TPU-only")
-def test_fused_g2_kernels_bit_exact():  # pragma: no cover - TPU-only
-    from tpu_bls12_381.curves.pallas_g2 import padd2, pdbl2, pmadd2
-
-    rng = random.Random(0xB15)
-    F = FQ2_ADAPTER
-    pts = _g2_points(rng, 3) + [None]
-    A = g2.affine_from_ints(pts)
-    B = g2.affine_from_ints(pts[1:] + pts[:1])
-    P = pj.affine_to_proj(F, A)
-    Q = pj.affine_to_proj(F, B)
-    flat = jax.tree_util.tree_leaves
-    eq = lambda X, Y: all(
-        bool(jnp.array_equal(a, b)) for a, b in zip(flat(X), flat(Y))
-    )
-    assert eq(pmadd2(P, B), pj.proj_add_mixed(F, P, B))
-    assert eq(padd2(P, Q), pj.proj_add(F, P, Q))
-    assert eq(pdbl2(P), pj.proj_double(F, P))
-    sign = jnp.asarray([False, True, True, False])
-    x2, y2, inf2 = B
-    want = pj.proj_add_mixed(F, P, (x2, F.cmov(sign, F.neg(y2), y2), inf2))
-    assert eq(pmadd2(P, B, sign), want)
-    assert eq(pmadd2(P, A), pj.proj_add_mixed(F, P, A))

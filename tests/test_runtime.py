@@ -15,22 +15,22 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tpu_bls12_381 import constants, oracle
-from tpu_bls12_381.curves import g1, points as pt
-from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER
-from tpu_bls12_381.fields import FR, FQ
-from tpu_bls12_381.fields.limbs import ints_to_limbs, limbs_to_ints
-from tpu_bls12_381.runtime import (
+from bls12_381_jax import constants, oracle
+from bls12_381_jax.curves import g1, points as pt
+from bls12_381_jax.curves.field_adapters import FQ_ADAPTER
+from bls12_381_jax.fields import FR, FQ
+from bls12_381_jax.fields.limbs import ints_to_limbs, limbs_to_ints
+from bls12_381_jax.runtime import (
     Config,
     DeviceType,
     config,
     reset_config_cache,
 )
-from tpu_bls12_381.runtime import types as rt_types
-from tpu_bls12_381.runtime.dispatch import Route, dispatch_msm, dispatch_ntt
-from tpu_bls12_381.runtime.msm_context import g1_context
-from tpu_bls12_381.runtime.ntt_context import NttContext
-from tpu_bls12_381.runtime.accelerator import Accelerator, backend_info
+from bls12_381_jax.runtime import types as rt_types
+from bls12_381_jax.runtime.dispatch import Route, dispatch_msm, dispatch_ntt
+from bls12_381_jax.runtime.msm_context import g1_context
+from bls12_381_jax.runtime.ntt_context import NttContext
+from bls12_381_jax.runtime.accelerator import Accelerator, backend_info
 
 
 N_PTS = 64  # shared across MSM tests so staged jits compile once
@@ -71,7 +71,7 @@ class TestConfig:
         assert c.ntt_max_log_n == 16
 
     def test_thresholds(self, env):
-        env("MIDNIGHT_TPU_MIN_K", "10")
+        env("MIDNIGHT_GPU_MIN_K", "10")
         env("MIDNIGHT_NTT_MIN_K", "8")
         c = config()
         assert c.use_accel_msm(1 << 10) and not c.use_accel_msm((1 << 10) - 1)
@@ -80,20 +80,76 @@ class TestConfig:
     def test_gpu_alias_and_clamping(self, env):
         env("MIDNIGHT_GPU_MIN_K", "7")
         assert config().msm_min_k == 7
-        env("MIDNIGHT_TPU_PRECOMPUTE", "99")
+        env("MIDNIGHT_GPU_PRECOMPUTE", "99")
         assert config().precompute_factor == 8  # clamped to [1, 8]
 
     def test_device_force(self, env):
         env("MIDNIGHT_DEVICE", "cpu")
         assert not config().use_accel_msm(1 << 20)
-        env("MIDNIGHT_DEVICE", "tpu")
+        env("MIDNIGHT_DEVICE", "gpu")
         assert config().use_accel_msm(1)
 
     def test_bad_values_fall_back(self, env):
         env("MIDNIGHT_DEVICE", "quantum")
         assert config().device is DeviceType.AUTO
-        env("MIDNIGHT_TPU_MIN_K", "not_a_number")
+        env("MIDNIGHT_GPU_MIN_K", "not_a_number")
         assert config().msm_min_k == 15
+
+
+class TestDevicePolicy:
+    @pytest.mark.parametrize("value, member", [
+        ("gpu", DeviceType.GPU), ("cpu", DeviceType.CPU),
+        ("auto", DeviceType.AUTO)])
+    def test_values(self, env, value, member):
+        env("MIDNIGHT_DEVICE", value)
+        c = config()
+        assert c.device is member
+        # gpu forces the accelerator, cpu the host, auto the threshold
+        assert c.use_accel_msm(1) is (member is DeviceType.GPU)
+        assert c.use_accel_msm(1 << 20) is (member is not DeviceType.CPU)
+
+    def test_tpu_is_not_a_value(self, env):
+        env("MIDNIGHT_DEVICE", "tpu")  # warns, falls back to auto
+        assert config().device is DeviceType.AUTO
+        assert {d.value for d in DeviceType} == {"auto", "gpu", "cpu"}
+
+    def test_gpu_names_are_primary(self, env):
+        env("MIDNIGHT_GPU_MIN_K", "11")
+        env("MIDNIGHT_GPU_PRECOMPUTE", "2")
+        c = config()
+        assert c.msm_min_k == 11 and c.precompute_factor == 2
+
+
+class TestNttAlgorithm:
+    @pytest.mark.parametrize("value", ["radix2", "auto", "RADIX2"])
+    def test_accepted(self, env, value):
+        env("MIDNIGHT_NTT_ALGORITHM", value)
+        assert config().ntt_algorithm == value.lower()
+
+    @pytest.mark.parametrize("value", ["fourstep", "mixedradix"])
+    def test_rejected(self, env, value):
+        env("MIDNIGHT_NTT_ALGORITHM", value)
+        with pytest.raises(ValueError, match="MIDNIGHT_NTT_ALGORITHM"):
+            config()
+
+
+class TestHandles:
+    def test_wait_blocks_and_converts(self):
+        from bls12_381_jax.runtime import AsyncHandle
+
+        x = jnp.arange(8, dtype=jnp.uint32) * 3
+        h = AsyncHandle(x, convert=lambda v: np.asarray(v).tolist())
+        assert h.wait() == [3 * i for i in range(8)]
+        assert h.is_ready()
+        assert h.wait() == [3 * i for i in range(8)]  # converts once
+
+    def test_is_ready_after_block_until_ready(self):
+        from bls12_381_jax.runtime.handles import AsyncHandle, ImmediateHandle
+
+        x = jax.block_until_ready(jnp.ones((4,), jnp.uint32))
+        assert AsyncHandle({"a": x, "b": [x]}).is_ready()
+        h = ImmediateHandle(5)
+        assert h.is_ready() and h.wait() == 5
 
 
 class TestDispatch:
@@ -109,7 +165,7 @@ class TestDispatch:
         assert res.value == want
 
     def test_msm_forced_accel_matches_cpu(self, rng, env):
-        env("MIDNIGHT_DEVICE", "tpu")
+        env("MIDNIGHT_DEVICE", "gpu")
         _, pts, ks = _points(rng, N_PTS)
         scalars = [rng.randrange(constants.FR_MODULUS) for _ in range(N_PTS)]
         res = dispatch_msm(scalars, pts)
@@ -123,7 +179,7 @@ class TestDispatch:
         env("MIDNIGHT_DEVICE", "cpu")
         cpu = dispatch_ntt(vals)
         assert cpu.route is Route.CPU
-        env("MIDNIGHT_DEVICE", "tpu")
+        env("MIDNIGHT_DEVICE", "gpu")
         acc = dispatch_ntt(vals)
         assert acc.route is Route.ACCEL
         assert cpu.value == acc.value
@@ -241,14 +297,14 @@ class TestTypes:
 
 class TestVecopDispatch:
     def test_routes_and_matches(self, rng, env):
-        from tpu_bls12_381.runtime.dispatch import dispatch_vecop
+        from bls12_381_jax.runtime.dispatch import dispatch_vecop
 
         a = [rng.randrange(constants.FR_MODULUS) for _ in range(32)]
         b = [rng.randrange(constants.FR_MODULUS) for _ in range(32)]
         res = dispatch_vecop("mul", a, b)
         assert res.route is Route.CPU  # below the 4096 threshold
         assert res.value == [x * y % constants.FR_MODULUS for x, y in zip(a, b)]
-        env("MIDNIGHT_DEVICE", "tpu")
+        env("MIDNIGHT_DEVICE", "gpu")
         acc = dispatch_vecop("add", a, b)
         assert acc.route is Route.ACCEL
         assert acc.value == [(x + y) % constants.FR_MODULUS for x, y in zip(a, b)]
@@ -256,7 +312,7 @@ class TestVecopDispatch:
 
 class TestMemoryReport:
     def test_report_counts_live_arrays(self):
-        from tpu_bls12_381.runtime import live_arrays_report, total_live_bytes
+        from bls12_381_jax.runtime import live_arrays_report, total_live_bytes
 
         keep = jnp.zeros((16, 100), jnp.uint32)
         rep = live_arrays_report()
@@ -266,4 +322,4 @@ class TestMemoryReport:
 class TestAccelerator:
     def test_backend_info(self):
         info = backend_info()
-        assert "platform" in info and "tpu_bls12_381" in info
+        assert "platform" in info and "bls12_381_jax" in info

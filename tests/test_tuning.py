@@ -1,58 +1,23 @@
-"""Chip-generation tuning profiles (gpu_config.cuh analog)."""
+"""MSM window and lane-tile caps (pippenger module constants)."""
 
-import pytest
-
-from tpu_bls12_381 import tuning
-
-
-@pytest.fixture
-def gen_env(monkeypatch):
-    def set_(gen):
-        monkeypatch.setenv("MIDNIGHT_TPU_GEN", gen)
-        tuning.reset_cache()
-
-    yield set_
-    tuning.reset_cache()
+from bls12_381_jax.msm import pippenger
 
 
 class TestChipProfile:
-    def test_cpu_backend_detected(self):
-        tuning.reset_cache()
-        prof = tuning.chip_profile()  # suite runs on CPU
-        assert prof.name == "cpu"
-        assert prof.lane_block == 256
+    def test_profile_shapes_msm_knobs(self, monkeypatch):
+        from bls12_381_jax.msm.pippenger import lane_tile_for, window_bits_for
 
-    def test_env_override(self, gen_env):
-        gen_env("v5p")
-        assert tuning.chip_profile().name == "v5p"
-        gen_env("v6e")
-        prof = tuning.chip_profile()
-        assert prof.name == "v6e" and prof.derived
-
-    def test_kind_parsing(self):
-        assert tuning._kind_to_gen("TPU v5e") == "v5e"
-        assert tuning._kind_to_gen("TPU v5 lite") == "v5e"
-        assert tuning._kind_to_gen("TPU v5p") == "v5p"
-        assert tuning._kind_to_gen("TPU v4") == "v4"
-        assert tuning._kind_to_gen("TPU v6 lite") == "v6e"
-        assert tuning._kind_to_gen("weird") == ""
-
-    def test_profile_shapes_msm_knobs(self, gen_env):
-        from tpu_bls12_381.msm.pippenger import lane_tile_for, window_bits_for
-
-        gen_env("v5e")
         assert window_bits_for(1 << 20) == 15
         assert window_bits_for(1 << 22) == 16
         assert lane_tile_for(1 << 24) == 1 << 15  # capped
-        gen_env("v6e")  # wider lane-tile cap
-        assert lane_tile_for(1 << 24) == 1 << 16
+        monkeypatch.setattr(pippenger, "MSM_LANE_TILE_LOG_CAP", 16)
+        assert lane_tile_for(1 << 24) == 1 << 16  # the cap is the constant
 
-    def test_g2_cost_model(self, gen_env):
+    def test_g2_cost_model(self):
         """Fq2 mul = 3 Fq muls on 2x limb planes -> both caps drop a step."""
-        from tpu_bls12_381.curves.field_adapters import FQ2_ADAPTER
-        from tpu_bls12_381.msm.pippenger import lane_tile_for, window_bits_for
+        from bls12_381_jax.curves.field_adapters import FQ2_ADAPTER
+        from bls12_381_jax.msm.pippenger import lane_tile_for, window_bits_for
 
-        gen_env("v5e")
         assert window_bits_for(1 << 22, FQ2_ADAPTER) == 15
         assert window_bits_for(1 << 20, FQ2_ADAPTER) == 14
         assert lane_tile_for(1 << 24, FQ2_ADAPTER) == 1 << 14

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Golden-vector generator for the TPU BLS12-381 library.
+"""Golden-vector generator for the bls12_381_jax library.
 
 INDEPENDENT of the library and of its Python oracle: everything here is
 computed with plain Python big-ints, *affine* chord-tangent group-law
-formulas (the oracle uses Jacobian EFD formulas; the TPU path uses RCB16
+formulas (the oracle uses Jacobian EFD formulas; the device path uses RCB16
 homogeneous projective), and a recursive radix-2 FFT (the library uses an
-iterative DIT ladder / Bailey four-step).  Agreement between three
+iterative DIT ladder / sharded Bailey four-step).  Agreement between three
 structurally different implementations pins the math; the explicit limb
 images in ``field_vectors.json`` pin the wire format.
 

@@ -5,17 +5,18 @@ if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
 import jax
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/tpu_bls12_381_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 import numpy as np
 import jax.numpy as jnp
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from tpu_bls12_381 import constants, oracle, runtime
-from tpu_bls12_381.curves import g1
-from tpu_bls12_381.fields import FR
-from tpu_bls12_381.fields.limbs import ints_to_limbs
-from tpu_bls12_381.runtime import dispatch
+from bls12_381_jax.compile_cache import enable_compile_cache
+enable_compile_cache()
+
+from bls12_381_jax import constants, oracle, runtime
+from bls12_381_jax.curves import g1
+from bls12_381_jax.fields import FR
+from bls12_381_jax.fields.limbs import ints_to_limbs
+from bls12_381_jax.runtime import dispatch
 
 rng = random.Random(0xBEEF)
 N = 64
@@ -72,7 +73,7 @@ print("OK dryrun_multichip(8)", flush=True)
 
 # 5. clean-error probes
 try:
-    from tpu_bls12_381.ntt import ntt
+    from bls12_381_jax.ntt import ntt
     ntt(x[:, :1000])
     print("FAIL: non-pow2 NTT did not raise")
 except Exception as e:
